@@ -3,7 +3,7 @@
 This is the reference's nobian production workflow end-to-end
 (/root/reference/examples/mechanics/nobian/Simulation/run_interlayer.py:
 163-236 stage flow, :396-763 CSV operational years, :1194-1241 per-region
-constitutive masking) on the rebuilt TPU-native stack:
+constitutive masking) on the rebuilt JAX stack:
 
 * heterogeneous cavern mesh: revolved cavern profile + two dipping
   interlayer bands (CI scale: generated in-process by GridCavern;
@@ -23,7 +23,7 @@ constitutive masking) on the rebuilt TPU-native stack:
   to year end (capability the reference lacks; checkpoint.py).
 
 Run (CI scale, ~2 min CPU):     python main.py --days 365 --dt-days 2
-Full scale (TPU, documented):   python main.py --full --days 365
+Full scale (GPU, documented):   python main.py --full --days 365
                                   --dt-hours 6
 Resume:                         python main.py --resume output/
                                   nobian_yearly/checkpoint.npz
@@ -190,7 +190,7 @@ def main(argv=None):
     ap.add_argument("--mesh-n", type=int, default=8,
                     help="CI-scale mesh resolution")
     ap.add_argument("--full", action="store_true",
-                    help="run on grids/cavern_interlayer_1200 (TPU scale)")
+                    help="run on grids/cavern_interlayer_1200 (GPU scale)")
     ap.add_argument("--resume", default=None,
                     help="checkpoint .npz to resume the operation stage from")
     ap.add_argument("--skip-equilibrium", action="store_true")

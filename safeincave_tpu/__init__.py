@@ -1,10 +1,10 @@
-"""safeincave_tpu - TPU-native 3D salt-cavern geomechanics framework.
+"""safeincave_tpu - 3D salt-cavern geomechanics framework in JAX.
 
 A from-scratch JAX/XLA re-design with the capabilities of SafeInCave
 (reference mounted at /root/reference): tetrahedral FEM for quasi-static
 momentum balance with a rich inelastic constitutive suite, one-way coupled
 transient heat diffusion, matrix-free Krylov solvers, and SPMD sharding over
-TPU device meshes in place of MPI domain decomposition.
+JAX device meshes in place of MPI domain decomposition.
 
 Public API mirrors the reference package ``safeincave.__init__``
 (/root/reference/safeincave/__init__.py:14-58) so reference users can migrate

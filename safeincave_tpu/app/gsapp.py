@@ -1,6 +1,6 @@
 """Tkinter GUI for building and running ``input_file.json`` cases.
 
-TPU-native rebuild of the reference GUI suite:
+JAX rebuild of the reference GUI suite:
 
 * main window / tabs / console / run orchestration —
   /root/reference/safeincave/app/gsapp.py:23-1027
@@ -409,7 +409,7 @@ class GsApp:
             self.builder = InputFileBuilder.load(case_path)
 
         self.root = master or tk.Tk()
-        self.root.title("SafeInCave-TPU")
+        self.root.title("SafeInCave (JAX)")
         self.root.geometry("1000x780")
 
         self._console_q: queue.Queue[str] = queue.Queue()

@@ -1,29 +1,25 @@
-"""Assembled block-ELL stiffness operator: the TPU-native SpMV.
+"""Assembled block-ELL stiffness operator: a gather-once SpMV.
 
 Replaces: PETSc MatAIJ assembly + MatMult in the reference
 (/root/reference/safeincave/MomentumEquation.py:1008-1025).
 
-Why assembled, and why this layout (all measured on TPU v5e):
+Why assembled, and why this layout:
 
-* XLA lowers unstructured gather/scatter to a ~serial per-row loop
-  (~1.5-6 ns/row regardless of row width, ~0.6 Grows/s ceiling), so any
-  matrix-free matvec that touches 4E element rows is capped at ~1% of the
-  819 GB/s HBM roofline.  The fix is to do the gather work ONCE per
-  linearized solve (assembly) and make every Krylov iteration a dense
+* A matrix-free matvec gathers and scatters 4E element rows on every
+  Krylov iteration.  The assembled form does the gather work ONCE per
+  linearized solve (assembly) and makes every Krylov iteration a dense
   streaming op.
 * Nodes are grouped into blocks of ``G`` (default 8) consecutive
   band-ordered nodes.  Group ``g`` couples to the ``K`` groups that share
   an element with it: the operator is a dense (3G, K*3G, Gn) tensor
-  ``B`` with the GROUP index last (on the 128-wide vector lanes - Gn is
-  hundreds-to-thousands, so every elementwise op runs full-lane), and
+  ``B`` with the GROUP index last (Gn is hundreds-to-thousands, the long
+  contiguous axis of every elementwise op), and
 
       y[i, g] = sum_c B[i, c, g] * U[c, g]
 
   with ``U`` the gathered neighbour values - a broadcast-multiply-reduce
-  the VPU streams at HBM rate, plus one (Gn*K)-row gather of u groups.
-  No einsum/dot: a batched (48 x K*48) matvec drives the MXU at N=1
-  (measured 61 GB/s), and f64 dots are software-emulated on TPU; the
-  elementwise form is memory-bound in BOTH precisions.
+  that streams ``B`` once, plus one (Gn*K)-row gather of u groups.  The
+  elementwise form (no einsum/dot) is memory-bound in BOTH precisions.
 * Assembly stays on device and elementwise: per-element 12x12 stiffness
   contributions are computed SoA over (E,)-lane vectors exploiting the
   3-nonzero sparsity of the P1 strain basis (~650 full-lane FMAs), then
@@ -59,7 +55,7 @@ def element_block_rows(CT_soa, gn, vol):
 
     Row (4a + b)*E + e holds k_e[a, i, b, j] = V_e sum_p w_p eps[a,i,p]
     sig[b,j,p] at component column 3i + j — fully elementwise on (E,)-lane
-    vectors (no dots: f64 dots are software-emulated on TPU), exploiting
+    vectors (no dots), exploiting
     the 3-nonzero sparsity of the P1 strain basis.  Shared by every
     assembled-operator backend (block-ELL, block-DIA).
     """
@@ -96,9 +92,8 @@ def element_block_comp_rows(CT_soa, gn, vol):
 
     Row (4a + b) * 9 + (3i + j) holds the same k_e[a, i, b, j] values as
     :func:`element_block_rows`, but with the ELEMENT axis as the minor
-    (lane) dimension — the only layout that tiles without padding on TPU
-    ((16E, 9) pads its 9-wide minor dim to 128 lanes, a 14x HBM blowup
-    at production scale).  Used by the structured block-DIA assembly.
+    dimension, so no array has a 9-wide minor dimension.  Used by the
+    structured block-DIA assembly.
     """
     dt = CT_soa.dtype
     gn = gn.astype(dt)                                   # (4, 3, E)
@@ -191,8 +186,7 @@ class BlockELL:
     def assemble(self, CT_soa):
         """CT (6,6,E) -> block tensor (3G, K*3G, Gn), dtype of CT.
 
-        Fully elementwise on (E,)-lane vectors (no dots - f64 dots are
-        software-emulated on TPU): ~650 full-lane FMAs, one static
+        Fully elementwise on (E,) vectors (no dots): ~650 FMAs, one static
         permutation gather (16E rows), a cumsum segment reduction and one
         (3,3)-window scatter per distinct node pair.
         """

@@ -6,9 +6,8 @@ whose node numbering is (quasi-)structured.
 
 Why this format exists next to block-ELL (fem/blockell.py):
 
-* Every general sparse layout on TPU pays an unstructured gather for the
-  neighbour values of ``u`` — XLA lowers that to a ~serial per-row loop,
-  which caps block-ELL well below the HBM roofline at production scale.
+* Every general sparse layout pays an unstructured gather for the
+  neighbour values of ``u``.
 * On a structured (lexicographic) node numbering the column offsets
   ``j - i`` of ALL node pairs collapse to a handful of distinct values
   (15 for the GridBox Kuhn tet split, independent of resolution, at 97%
@@ -19,10 +18,7 @@ Why this format exists next to block-ELL (fem/blockell.py):
 
   — shifts are STATIC slices of a zero-padded ``u``; there is no gather,
   no scatter, no index traffic at all.  The matvec streams ``9 |D|``
-  full-lane value planes once; measured on a v5e chip at 511k tets the
-  Pallas form runs at 462 GB/s streamed = 56% of the 819 GB/s HBM
-  roofline (f32, shift-copy construction included), vs 3 GB/s for the
-  gather/scatter matrix-free kernel at the same scale.
+  value planes once, as one XLA-fused elementwise multiply-accumulate.
 * Assembly: when the connectivity is recognisably cell-structured
   (:class:`StructuredPlan`, e.g. any natural-order GridBox) the element
   block rows land as 96 STATIC strided slice-adds — cells of one
@@ -32,25 +28,22 @@ Why this format exists next to block-ELL (fem/blockell.py):
   (offset index, node) is used (correct everywhere, slower at scale).
 
 ``DIAPlan`` refuses meshes whose ordering is not offset-structured (too
-many distinct offsets or low slot fill) so callers fall back to the band
-or cumsum kernels — real gmsh cavern meshes stay on those; regular-box
+many distinct offsets or low slot fill) so callers fall back to the
+cumsum kernel — real gmsh cavern meshes stay on it; regular-box
 production grids (SURVEY.md 6: the reference's 1e5-1e6-tet PETSc MPI
 regime) get this one.
 
 Padding contract: ``u`` is zero-padded by the extreme offsets on both
 sides; slots for pairs that do not exist hold exact zeros from assembly,
 so out-of-range shifted reads multiply against zero coefficients.  The
-assembled value planes are stored lanes-last and zero-padded to the
-Pallas tile multiple: shape ``(Dn*9, Npad)``, row ``d*9 + 3c + c2``.
+assembled value planes are stored node-axis-last: shape ``(Dn*9, N)``,
+row ``d*9 + 3c + c2``.
 """
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
 
 from .blockell import element_block_rows, element_block_comp_rows
 
@@ -81,8 +74,8 @@ class DIAPlan:
             raise ValueError(
                 f"node numbering is not offset-structured: {len(offsets)} "
                 f"distinct column offsets at {fill:.2f} slot fill (need "
-                f"<= {max_offsets} at >= {min_fill}); keep the band/cumsum "
-                f"kernels for this mesh")
+                f"<= {max_offsets} at >= {min_fill}); keep the cumsum "
+                f"kernel for this mesh")
         self.offsets = offsets.astype(np.int64)          # sorted
         self.Dn = len(offsets)
         self.fill = fill
@@ -172,18 +165,12 @@ class StructuredPlan:
 class BlockDIA:
     """Device-side assembled offset operator for one mesh.
 
-    ``assemble`` produces the padded lanes-last value planes
-    ``(Dn*9, Npad)``; ``matvec`` applies them.  On TPU the f32 matvec
-    runs as one Pallas kernel (static-sliced shift copies + fused
-    multiply-accumulate over node tiles); the f64 path and CPU use the
-    equivalent XLA formulation (identical operator, so converged fields
-    match either way).
+    ``assemble`` produces the node-axis-last value planes ``(Dn*9, N)``;
+    ``matvec`` applies them as static-sliced shift copies + one fused
+    multiply-accumulate, in whatever float dtype the planes carry.
     """
 
-    TILE = 8192                                   # Pallas lane-tile size
-
-    def __init__(self, kern, max_offsets: int = 96, min_fill: float = 0.4,
-                 interpret: bool = False):
+    def __init__(self, kern, max_offsets: int = 96, min_fill: float = 0.4):
         self.plan = DIAPlan(np.asarray(kern.grid.conn), kern.n_nodes,
                             max_offsets=max_offsets, min_fill=min_fill)
         p = self.plan
@@ -195,35 +182,27 @@ class BlockDIA:
         self._vol = np.asarray(kern.grid.volumes)
         self._lo = int(-p.offsets.min())                     # left pad
         self._hi = int(p.offsets.max())                      # right pad
-        T = self.TILE if p.n_nodes >= self.TILE else 1024
-        self._tile = T
-        self.Npad = ((p.n_nodes + T - 1) // T) * T
         try:
             self._sp = StructuredPlan(np.asarray(kern.grid.conn),
                                       kern.n_nodes, p.offsets)
         except ValueError:
             self._sp = None
-        self._interpret = interpret
-        self._use_pallas = interpret or jax.default_backend() == "tpu"
-        self._pallas_call = self._make_pallas_call() if self._use_pallas \
-            else None
 
     # ------------------------------------------------------------------ #
     @property
     def structured(self):
         """True when the scatter-free strided assembly is active.
 
-        Structured meshes assemble so cheaply in f32 (measured 6 ms at
-        511k tets vs 94 ms for the f64-emulated element math) that the
-        mixed-precision solver should assemble ONLY the f32 operator
-        from f32 element math and keep the exact-f64 action matrix-free
-        (one f64 matvec per refinement pass beats an f64 assembly per
+        Structured meshes assemble cheaply enough in f32 that the
+        mixed-precision solver assembles ONLY the f32 operator from f32
+        element math and keeps the exact-f64 action matrix-free (one f64
+        matvec per refinement pass instead of an f64 assembly per
         linearized solve).
         """
         return self._sp is not None
 
     def assemble(self, CT_soa):
-        """CT (6,6,E) -> padded offset planes (Dn*9, Npad), dtype of CT.
+        """CT (6,6,E) -> offset planes (Dn*9, N), dtype of CT.
 
         Structured meshes: 96 static strided slice-adds (scatter-free,
         memory rate).  General offset-structured meshes: one row-granular
@@ -244,14 +223,14 @@ class BlockDIA:
             flat = flat.reshape(p.Dn, p.n_nodes, 9)
             planes = jnp.transpose(flat, (0, 2, 1))          # (Dn, 9, N)
             planes = planes.reshape(p.Dn * 9, p.n_nodes)
-        return jnp.pad(planes, ((0, 0), (0, self.Npad - p.n_nodes)))
+        return planes
 
     def _assemble_structured(self, v):
         """Scatter-free assembly: spread + static shift-adds.
 
-        Every array keeps the big (cell/node) axis as the minor lane
+        Every array keeps the big (cell/node) axis as the minor
         dimension — chained .at[].add scatters and any (..., 9)-minor
-        layout were measured to blow HBM by >10x at 500k tets.
+        layout multiply the device-memory footprint at 500k tets.
 
         1. restack (144, E) t-major -> (864, H), cells lane-minor
         2. "spread" cell-flat -> node-flat: insert the zero cell planes
@@ -289,60 +268,28 @@ class BlockDIA:
 
     # ------------------------------------------------------------------ #
     def _shift_stack(self, u):
-        """(N, 3) -> (Dn*3, Npad): one shifted copy of uT per offset."""
+        """(N, 3) -> (Dn*3, N): one shifted copy of uT per offset."""
         p = self.plan
-        up = jnp.pad(u.T, ((0, 0), (self._lo,
-                                    self._hi + self.Npad - p.n_nodes)))
+        up = jnp.pad(u.T, ((0, 0), (self._lo, self._hi)))
         return jnp.concatenate(
             [jax.lax.dynamic_slice_in_dim(up, self._lo + int(off),
-                                          self.Npad, 1)
+                                          p.n_nodes, 1)
              for off in p.offsets])
-
-    def _make_pallas_call(self):
-        p, T = self.plan, self._tile
-        Dn, Npad = p.Dn, self.Npad
-
-        def body(vals_ref, ush_ref, o_ref):
-            acc = [None, None, None]
-            for di in range(Dn):
-                for c2 in range(3):
-                    uvec = ush_ref[di * 3 + c2, :]
-                    for c in range(3):
-                        t = vals_ref[di * 9 + 3 * c + c2, :] * uvec
-                        acc[c] = t if acc[c] is None else acc[c] + t
-            for c in range(3):
-                o_ref[c, :] = acc[c]
-
-        # 0 * g keeps the index maps i32 under jax_enable_x64 (an i64
-        # literal in the map breaks the Mosaic lowering)
-        gridspec = pl.GridSpec(
-            grid=(Npad // T,),
-            in_specs=[pl.BlockSpec((Dn * 9, T), lambda g: (0 * g, g)),
-                      pl.BlockSpec((Dn * 3, T), lambda g: (0 * g, g))],
-            out_specs=pl.BlockSpec((3, T), lambda g: (0 * g, g)))
-        return pl.pallas_call(
-            body, grid_spec=gridspec,
-            out_shape=jax.ShapeDtypeStruct((3, Npad), jnp.float32),
-            interpret=self._interpret)
 
     def matvec(self, vals, u):
         """Stiffness action A @ u: pure shift-multiply-accumulate.
 
         ``vals`` from :meth:`assemble` (any float dtype, possibly cast);
         ``u`` (N, 3).  No gather: each offset term reads a static slice
-        of the zero-padded ``u``; f32 on TPU runs the fused Pallas tile
-        kernel, other dtypes/backends the equivalent XLA loop.
+        of the zero-padded ``u``, and XLA fuses the whole sum into one
+        elementwise kernel.
         """
         p = self.plan
-        N = p.n_nodes
-        ush = self._shift_stack(u.astype(vals.dtype))        # (Dn*3, Npad)
-        if self._pallas_call is not None and vals.dtype == jnp.float32:
-            y = self._pallas_call(vals, ush)                 # (3, Npad)
-            return y[:, :N].T
+        ush = self._shift_stack(u.astype(vals.dtype))        # (Dn*3, N)
         acc = [None, None, None]
         for di in range(p.Dn):
             for c in range(3):
                 for c2 in range(3):
                     term = vals[di * 9 + 3 * c + c2] * ush[di * 3 + c2]
                     acc[c] = term if acc[c] is None else acc[c] + term
-        return jnp.stack([a[:N] for a in acc], axis=-1)      # (N, 3)
+        return jnp.stack(acc, axis=-1)                       # (N, 3)

@@ -10,14 +10,14 @@ no host round-trips.
 Convergence: relative residual ||r|| <= rtol * ||b|| (+ atol), like KSP's
 default left-preconditioned residual test but on the true residual.
 
-TPU note: float64 is software-emulated on TPU (v5e and friends), so an f64
-Krylov iteration costs an order of magnitude more than f32.  :func:`ir_solve`
+Mixed precision: an f64 Krylov iteration moves twice the bytes of an f32
+one and runs at half the vector rate on the GPU.  :func:`ir_solve`
 therefore runs the Krylov iterations in **float32** and wraps them in a
 **float64 defect-correction (iterative refinement) loop**: each outer pass
 computes the true f64 residual r = b - A x, solves A d = r / ||r|| in f32 to
 a loose tolerance, and updates x += ||r|| d in f64.  The final residual test
 is the same f64 criterion as the straight-f64 path, so accuracy is preserved
-while nearly all FLOPs run at native f32 speed.  The restart-per-pass
+while nearly all FLOPs run in f32.  The restart-per-pass
 structure also doubles as BiCGStab breakdown recovery.
 """
 from __future__ import annotations

@@ -1,11 +1,10 @@
-"""Custom batched dense linear algebra for TPU float64.
+"""Custom batched dense linear algebra for the f64 constitutive math.
 
-XLA on TPU only implements LU decomposition and symmetric eigensolvers in
-float32, so ``jnp.linalg.inv`` / ``eigvalsh`` cannot be used for the f64
-constitutive math the reference requires (torch ``linalg.inv`` on (N,6,6) at
-/root/reference/safeincave/MaterialProps.py:292-309, ``eigvalsh`` at
-:1872-1885).  These replacements are fully vectorized elementwise/VPU code
-that compiles on any backend:
+The reference inverts (N,6,6) tangents with torch ``linalg.inv``
+(/root/reference/safeincave/MaterialProps.py:292-309) and takes 3x3
+eigenvalues with ``eigvalsh`` (:1872-1885).  These replacements are fully
+vectorized elementwise code with the reference's singularity semantics,
+and compile on any backend:
 
 * :func:`inv6x6` - batched Gauss-Jordan with partial pivoting + singularity
   mask (used for consistent tangents; the mask drives the reference's
@@ -40,7 +39,8 @@ def inv6x6(M: jnp.ndarray, pivot_tol: float = 1e-30):
     n = 6
     batch_shape = M.shape[:-2]
 
-    # normalize to O(1): TPU f64 is range-limited double-float emulation
+    # normalize to O(1), so pivots and products stay far from the
+    # exponent limits of either precision
     raw_scale = jnp.max(jnp.abs(M), axis=(-2, -1))
     ok = jnp.isfinite(raw_scale) & (raw_scale > 0)
     norm = jnp.where(raw_scale > 0, raw_scale, 1.0)
@@ -117,10 +117,10 @@ def solve6x6(M: jnp.ndarray, b: jnp.ndarray):
 def inv3x3(M: jnp.ndarray) -> jnp.ndarray:
     """Closed-form (adjugate) inverse of batched 3x3 matrices.
 
-    The input is normalized by its max magnitude first: TPU float64 is
-    double-float emulation with float32 exponent range (~1e+-38), so raw
-    adjugate determinants of stiffness-scale blocks (entries ~1e15) would
-    overflow to inf/NaN.  After normalization all intermediates are O(1).
+    The input is normalized by its max magnitude first: raw adjugate
+    determinants of stiffness-scale blocks (entries ~1e15) would overflow
+    float32 (the f32 fixed-point phase calls this too).  After
+    normalization all intermediates are O(1).
     """
     s = jnp.max(jnp.abs(M), axis=(-2, -1), keepdims=True)
     s = jnp.where(s > 0, s, 1.0)

@@ -1,6 +1,6 @@
 """Constitutive suite: batched, differentiable, Voigt-native JAX models.
 
-Re-design of /root/reference/safeincave/MaterialProps.py for TPU:
+Re-design of /root/reference/safeincave/MaterialProps.py for JAX:
 state lives in tensorial-Voigt ``(N, 6)`` arrays, tangent operators are exact
 ``jacfwd`` Jacobians instead of finite differences, and every model exposes a
 pure-functional core (``f_*`` methods on explicit state pytrees) so the whole

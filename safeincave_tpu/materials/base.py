@@ -46,10 +46,10 @@ from ..utils import (VOIGT_WEIGHT, tensor_to_voigt, voigt_to_tensor)
 def apply66(M, v):
     """Batched Voigt 6x6 apply M @ v for M (E,6,6), v (E,6), full-lane.
 
-    einsum('nij,nj->ni', ...) lowers to E tiny matmuls on TPU (software-
-    emulated in f64); transposing to the stacked (6,6,E) layout and doing a
-    broadcast-multiply-reduce keeps the element axis on the 128-wide vector
-    lanes (see fem/kernels.py module docstring for the measurements).
+    einsum('nij,nj->ni', ...) lowers to E tiny matmuls; transposing to the
+    stacked (6,6,E) layout and doing a broadcast-multiply-reduce keeps the
+    element axis as the long contiguous axis (see fem/kernels.py module
+    docstring).
     """
     return (jnp.transpose(M, (1, 2, 0)) * v.T[None]).sum(1).T
 
@@ -102,7 +102,7 @@ class NonElasticElement:
 
         The stored parameters are float64 numpy; multiplying them into a
         float32 computation would silently promote everything back to
-        (software-emulated) float64 on TPU.  The mixed-precision fixed-point
+        float64.  The mixed-precision fixed-point
         phase therefore computes with a float32 shadow of the parameters.
         """
         if dtype == jnp.float32:

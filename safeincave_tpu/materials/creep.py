@@ -74,8 +74,9 @@ class DislocationCreep(NonElasticElement):
         # stress (the reference's FD probe is finite there too); the floor is
         # far below any physical stress so rates are unchanged.
         q = _von_mises6_floor(sv6, 1e-30)
-        # log-space: q**(n-1) alone can exceed the TPU double-float exponent
-        # range (~1e38) for n >= 5.5 at cavern stresses
+        # log-space: q**(n-1) alone can exceed the float32 exponent range
+        # (~1e38) of the f32 fixed-point phase for n >= 5.5 at cavern
+        # stresses
         A_bar = jnp.exp(jnp.log(p["A"]) - p["Q"] / _R_GAS / T
                         + (p["n"] - 1.0) * jnp.log(q))
         return A_bar * dev
@@ -187,7 +188,7 @@ class MunsonDawsonCreep(NonElasticElement):
         sigma_safe = _von_mises6_floor(sv6, 1.0)
         mu_safe = jnp.maximum(p["mu"], 1.0)
 
-        # log-space steady-state rate (sigma^n alone can overflow TPU df64)
+        # log-space steady-state rate (sigma^n alone can overflow float32)
         epsdot_ss = jnp.exp(jnp.log(p["A"]) - p["Q"] / (_R_GAS * T)
                             + p["n"] * jnp.log(sigma_safe))
 

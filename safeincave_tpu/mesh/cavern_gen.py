@@ -13,8 +13,8 @@ each its own tagged region, with the reference's region/boundary naming
 grids/cavern_interlayer_600_3D/geom.msh $PhysicalNames).
 
 Structured Kuhn tetrahedra (mesh/boxgen.py) rather than an unstructured
-gmsh tetrahedralization: on TPU the regular connectivity is a feature
-(tight RCM bands, small block-ELL K), and the physics contract — regions,
+gmsh tetrahedralization: the regular connectivity is a feature (tight RCM
+bands, small block-ELL K), and the physics contract — regions,
 boundary tags, cavern wall facets — is identical.
 """
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Grid: tags, regions, boundaries, and fully vectorized geometry precompute.
 
-TPU-native replacement for the reference grid layer
+JAX replacement for the reference grid layer
 (/root/reference/safeincave/Grid.py:27-579).  The reference's O(n) Python
 loops over cells (volumes :161-170, node-element stencil :172-196, smoother
 :198-242) become numpy gather/segment operations computed once at load time;

@@ -1,7 +1,7 @@
 """Mesh reordering for memory locality and spatial partitioning.
 
 The reference never needed this (PETSc assembles sparse matrices), but for
-matrix-free gather/scatter on TPU the element/node ordering controls memory
+matrix-free gather/scatter the element/node ordering controls memory
 locality and the quality of contiguous-chunk sharding (SURVEY.md 7.3:
 "mesh reordering for locality is a new, load-bearing preprocessing step").
 
@@ -10,9 +10,9 @@ locality and the quality of contiguous-chunk sharding (SURVEY.md 7.3:
 * ``rcb``: recursive coordinate bisection into ``nparts`` spatially compact
   equal-size blocks - contiguous element chunks then map 1:1 onto devices, so
   the sharded assembly's cross-device node overlap is minimized.
-* ``band``: RCM node ordering + min-node element sort - the layout the
-  banded Pallas matvec (fem/bandplan.py) compiles its static schedule
-  against; also excellent gather locality for the XLA path.
+* ``band``: RCM node ordering + min-node element sort (:func:`band_order`)
+  - small node-graph bandwidth, so element gathers touch nearby nodes and
+  contiguous node ids form compact 2-level coarse aggregates.
 
 Nodes are renumbered by first touch in the new element order (``band``
 instead dictates the node order directly).
@@ -23,6 +23,27 @@ import numpy as np
 
 from .grid import Grid
 from .native import morton_order, node_first_touch, rcb_partition
+
+
+def band_order(conn: np.ndarray, n_nodes: int):
+    """RCM node permutation + min-node element order.
+
+    Returns (node_perm, elem_order) where ``node_perm[new] = old`` and
+    ``elem_order[new] = old``.
+    """
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import reverse_cuthill_mckee
+
+    r = np.repeat(conn, conn.shape[1], axis=1).reshape(-1)
+    c = np.tile(conn, (1, conn.shape[1])).reshape(-1)
+    A = coo_matrix((np.ones_like(r, dtype=np.int8), (r, c)),
+                   shape=(n_nodes, n_nodes)).tocsr()
+    perm = np.asarray(reverse_cuthill_mckee(A, symmetric_mode=True))
+    inv = np.empty(n_nodes, np.int64)
+    inv[perm] = np.arange(n_nodes)
+    conn_new = inv[conn]
+    elem_order = np.argsort(conn_new.min(axis=1), kind="stable")
+    return perm, elem_order
 
 
 def _field_data(grid) -> dict:
@@ -53,7 +74,6 @@ def reorder_arrays(points, tets, tet_tags, tris, tri_tags,
         order = morton_order(centroids)
         parts = None
     elif method == "band":
-        from ..fem.bandplan import band_order
         node_old, order = band_order(tets, points.shape[0])
         nperm = np.empty(points.shape[0], np.int64)
         nperm[node_old] = np.arange(points.shape[0])   # old -> new
@@ -91,7 +111,6 @@ def reordered_grid(grid, method: str = "morton", nparts: int | None = None):
         order = morton_order(grid.centroids)
         parts = None
     elif method == "band":
-        from ..fem.bandplan import band_order
         node_old, order = band_order(grid.conn, grid.n_nodes)
         nperm = np.empty(grid.n_nodes, np.int64)
         nperm[node_old] = np.arange(grid.n_nodes)

@@ -55,7 +55,7 @@ class ScreenPrinter:
 
     def _emit_banner(self):
         self._log("=" * 78)
-        self._log("  safeincave-tpu  |  TPU-native salt-cavern geomechanics")
+        self._log("  safeincave-tpu  |  salt-cavern geomechanics in JAX")
         self._log("=" * 78)
         if self.grid is not None:
             self._log(f"  mesh: {self.grid.n_nodes} nodes, "

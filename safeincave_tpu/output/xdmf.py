@@ -17,7 +17,18 @@ import os
 import shutil
 
 import numpy as np
-import h5py
+
+
+def require_h5py():
+    """Import h5py on first use: only the XDMF/HDF5 writers and readers
+    need it, so the solver itself runs without it."""
+    try:
+        import h5py
+    except ImportError as exc:
+        raise ImportError(
+            "XDMF/HDF5 output needs the 'h5py' package "
+            "(pip install 'safeincave-tpu[io]')") from exc
+    return h5py
 
 
 def _field_layout(arr, n_nodes, n_elems):
@@ -69,7 +80,7 @@ class SaveFields:
             fdir = os.path.join(self.output_folder, field_name)
             os.makedirs(fdir, exist_ok=True)
             h5path = os.path.join(fdir, f"{field_name}.h5")
-            h5 = h5py.File(h5path, "w")
+            h5 = require_h5py().File(h5path, "w")
             h5.create_dataset("Mesh/geometry", data=np.asarray(self.grid.points))
             h5.create_dataset("Mesh/topology",
                               data=np.asarray(self.grid.conn, dtype=np.int64))

@@ -29,7 +29,7 @@ arrays inside the solve.
 
 All exchange index tables are static numpy built once per (mesh, nparts) in
 :class:`HaloPlan`; the device code is a single ``shard_map`` program whose
-``ppermute`` rounds ride ICI.
+``ppermute`` rounds XLA hands to the collective library (NCCL on GPUs).
 """
 from __future__ import annotations
 
@@ -261,8 +261,8 @@ class HaloMomentumSolver:
         self.conn_local = put(plan.conn_local, jnp.int32)
         self.grad_N_local = put(plan.grad_N_local)
         self.vol_local = put(plan.vol_local * plan.elem_pad)
-        # f32 twins for the mixed-precision Krylov path (f64 is software-
-        # emulated on TPU; the inner iterations run f32)
+        # f32 twins for the mixed-precision Krylov path (the inner
+        # iterations run f32)
         self.grad_N_local32 = self.grad_N_local.astype(jnp.float32)
         self.vol_local32 = self.vol_local.astype(jnp.float32)
         self.pair_send = tuple(put(a, jnp.int32) for a in plan.pair_send)

@@ -1,6 +1,6 @@
 """SPMD domain decomposition over a JAX device mesh.
 
-TPU-native replacement for the reference's MPI parallelism (SURVEY.md 2.2;
+JAX replacement for the reference's MPI parallelism (SURVEY.md 2.2;
 reference Grid.py:275-283 partitions cells via dolfinx and keeps ghost layers
 so constitutive work is communication-free, communicating only at
 assembly/solve through PETSc ghost updates).
@@ -14,7 +14,8 @@ Here the same structure maps onto XLA collectives:
 * **nodal fields are replicated**: each device scatter-adds its element
   contributions into a full-size nodal vector and a single ``lax.psum`` over
   the mesh axis replaces PETSc's ``ghostUpdate(ADD, REVERSE)`` +
-  ``scatter_forward``.  The psum rides ICI.
+  ``scatter_forward``.  XLA hands the psum to the collective library
+  (NCCL on GPUs), over the cards' interconnect.
 * global reductions (CG dot products, convergence norms) are psums, standing
   in for ``comm.allreduce`` (reference Simulators.py:433-436).
 
@@ -348,7 +349,7 @@ def shard_equation(eq, mesh: Mesh | None = None, axis: str = "e",
 
     * ``"halo"`` (default, the production scaling path): the Krylov loop
       runs on owner-sharded padded vectors with O(interface) halo exchange
-      per matvec and psum'd dot products - the TPU analog of the
+      per matvec and psum'd dot products - the device-mesh analog of the
       reference's PETSc ghost updates (MomentumEquation.py:915-922);
       layout conversion happens once per solve.
     * ``"psum"``: each matvec scatter-adds into a replicated nodal vector

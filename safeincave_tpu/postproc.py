@@ -20,7 +20,8 @@ import os
 import xml.etree.ElementTree as ET
 
 import numpy as np
-import h5py
+
+from .output.xdmf import require_h5py
 
 
 # ---------------------------------------------------------------------------
@@ -31,7 +32,7 @@ def _load_dataitem(text: str, base_dir: str, h5_cache: dict) -> np.ndarray:
     fname, path = text.strip().split(":", 1)
     fpath = os.path.join(base_dir, fname)
     if fpath not in h5_cache:
-        h5_cache[fpath] = h5py.File(fpath, "r")
+        h5_cache[fpath] = require_h5py().File(fpath, "r")
     return h5_cache[fpath][path][()]
 
 
@@ -145,7 +146,7 @@ def read_timeseries(output_folder: str, field_name: str):
     (n_steps, ...) matching the saved field layout.
     """
     h5path = os.path.join(output_folder, field_name, f"{field_name}.h5")
-    with h5py.File(h5path, "r") as h5:
+    with require_h5py().File(h5path, "r") as h5:
         points = h5["Mesh/geometry"][()]
         topology = h5["Mesh/topology"][()]
         grp = h5[f"Function/{field_name}"]

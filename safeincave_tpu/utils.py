@@ -1,6 +1,6 @@
 """Tensor/Voigt utilities, unit constants, and small helpers.
 
-TPU-native re-design of the reference utility layer
+JAX re-design of the reference utility layer
 (/root/reference/safeincave/Utils.py:34-343).  The reference splits tensor
 algebra between UFL symbolic expressions and batched torch; here everything is
 batched JAX on arrays.

@@ -147,8 +147,8 @@ class TestRunners:
 
 
 def _has_display():
-    import tkinter
     try:
+        import tkinter
         root = tkinter.Tk()
         root.destroy()
         return True

@@ -61,24 +61,6 @@ def test_structured_assembly_matches_scatter():
                                atol=1e-12 * np.abs(vals_scatter).max())
 
 
-def test_pallas_interpret_matches_xla():
-    """The Pallas f32 tile kernel (interpret mode on CPU) reproduces the
-    XLA loop formulation."""
-    grid = sc.GridBox(Lx=1.0, Ly=1.0, Lz=1.0, nx=4, ny=4, nz=4)
-    kern = MomentumKernel(grid)
-    dia_x = BlockDIA(kern)
-    dia_p = BlockDIA(kern, interpret=True)
-    assert dia_p._pallas_call is not None
-    rng = np.random.default_rng(2)
-    CT = _random_ct(grid.n_elems, rng)
-    u = jnp.asarray(rng.normal(size=(grid.n_nodes, 3)), dtype=jnp.float32)
-    vals = dia_x.assemble(CT).astype(jnp.float32)
-    y_x = np.asarray(dia_x.matvec(vals, u))
-    y_p = np.asarray(dia_p.matvec(vals, u))
-    np.testing.assert_allclose(y_p, y_x, rtol=1e-6,
-                               atol=1e-6 * np.abs(y_x).max())
-
-
 def test_refuses_unstructured_numbering():
     from safeincave_tpu.mesh.reorder import reordered_grid
     grid = sc.GridBox(Lx=1.0, Ly=1.0, Lz=1.0, nx=5, ny=5, nz=5)

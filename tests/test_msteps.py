@@ -248,7 +248,7 @@ class TestF32Polymorphism:
     """Every constitutive element must compute natively in f32 when fed f32
     state/stress - a single strong-typed f64 constant (numpy scalar, f64
     jnp literal) silently promotes the whole mixed-precision phase back to
-    software-emulated f64 on TPU."""
+    f64."""
 
     @pytest.mark.slow
     def test_all_elements_stay_f32(self):

@@ -8,8 +8,9 @@ from SafeInCave can keep reading their archives.
 import os
 
 import numpy as np
-import h5py
 import pytest
+
+h5py = pytest.importorskip("h5py")   # XDMF needs the [io] extra
 
 import safeincave_tpu as sc
 import safeincave_tpu.postproc as pp

@@ -24,7 +24,7 @@ Run (takes ~30-60 min on the 1-core host, compile-dominated):
     python tools/measure_baseline.py [--steps 5] [--configs a,b,...]
 
 Writes baseline_measured.json at the repo root; bench.py picks it up and
-prints vs-measured ratios next to the TPU numbers.
+prints vs-measured ratios next to the GPU numbers.
 """
 import argparse
 import json
@@ -33,9 +33,7 @@ import platform
 import sys
 import time
 
-# CPU backend MUST be forced before jax initializes; the env var alone is
-# not enough on hosts whose terminal hook pre-selects an accelerator
-# platform, so override the config defensively too.
+# CPU backend, forced before jax initializes
 os.environ["JAX_PLATFORMS"] = "cpu"
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
